@@ -1,5 +1,6 @@
-"""fspt_tpu — a TPU-native, differentiable, progressive Monte-Carlo path-tracing
-framework built from scratch in JAX (jit / shard_map / Pallas).
+"""fspt_tpu — a differentiable, progressive Monte-Carlo path-tracing
+framework built from scratch in JAX (jit / shard_map / Pallas), run on the
+GPU.
 
 Capability parity target: apbodnar/FSPT (a WebGL2 fragment-shader path tracer).
 The reference's GLSL megakernel (reference shader/tracer.fs) becomes a jitted,

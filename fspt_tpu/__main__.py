@@ -55,8 +55,6 @@ def _build(args):
                        batch_spp=args.batch_spp, mode=args.mode,
                        seed=args.seed, compact=not args.no_compact,
                        sort_state=not args.no_compact,
-                       intersector=("split" if not args.no_compact
-                                    else "walk"),
                        nee_env_nearest=not args.no_compact,
                        escape_env_nearest=not args.no_compact)
     post = None
@@ -109,8 +107,6 @@ def cmd_animate(args) -> int:
                        batch_spp=args.batch_spp, seed=args.seed,
                        compact=not args.no_compact,
                        sort_state=not args.no_compact,
-                       intersector=("split" if not args.no_compact
-                                    else "walk"),
                        nee_env_nearest=not args.no_compact,
                        escape_env_nearest=not args.no_compact)
     paths = render_animation(
@@ -197,6 +193,8 @@ def main(argv=None) -> int:
         from fspt_tpu.tools.diff import main as diff_main
         return diff_main(argv[1:])
     args = p.parse_args(argv)
+    from fspt_tpu.compile_cache import use_compile_cache
+    use_compile_cache()
     return args.fn(args)
 
 

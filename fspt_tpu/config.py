@@ -42,13 +42,16 @@ class PostConfig:
     gamma: float = 2.2
 
 
+INTERSECTORS = ("bvh", "plain", "brute")
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render configuration.
 
     Everything here is a static argument of the jitted render step — the
-    TPU-native replacement for the reference's #define injection
-    (reference main.js:873-877) and const shader parameters.
+    replacement for the reference's #define injection (reference
+    main.js:873-877) and const shader parameters.
     """
 
     width: int = 512
@@ -65,27 +68,24 @@ class RenderConfig:
     emissive_scale: float = 30.0   # hardcoded ×30 (reference tracer.fs:467)
     max_t: float = 1.0e5           # reference tracer.fs:10 MAX_T
     epsilon: float = 1.0e-6        # reference tracer.fs:11 EPSILON
-    stack_depth: int = 64          # traversal stack bound (tracer.fs:368)
-    # Engine selection for intersection:
-    #   "split"  - Pallas phase-split multiwalk kernel (ops/traverse4.py):
-    #              node-descent and leaf-MT substeps run in separate
-    #              bursts so each serial visit pays only its own vector
-    #              code path (~uses traverse3 automatically for scenes
-    #              whose tables exceed VMEM)
-    #   "walk"   - Pallas multiwalk kernel (ops/traverse3.py): 8 vectorized
-    #              128-ray walks per program, fused node+leaf substeps
-    #   "packet" - Pallas 1024-ray packet kernel (ops/traverse.py)
-    #   "brute"  - O(N*T) oracle, tests only
-    intersector: str = "walk"
-    # Sort secondary rays by direction octant before traversal so packets
-    # stay coherent (stable sort preserves tile grouping within octants)
+    # stack bound of the binary-tree autofocus raycast (tracer.fs:368); the
+    # wide-BVH traversal sizes its stack from the scene (pk_stack_depth)
+    stack_depth: int = 64
+    # Intersection engine (ops/bvh.py):
+    #   "bvh"   - the GPU kernel where the step is compiled for CUDA, the
+    #             plain jnp walk where it is compiled for the CPU
+    #   "plain" - the plain jnp walk on every platform (the kernel's
+    #             reference)
+    #   "brute" - O(N*T) oracle, tests only
+    intersector: str = "bvh"
+    # Sort secondary rays by (origin Morton code, direction octant) before
+    # traversal so neighbouring lanes walk similar paths
     sort_rays: bool = True
     # Coherence-sort the PATH STATE once per iteration (Morton order of
     # hit points) instead of sorting + un-permuting every traversal
     # launch: hits come back aligned, so the inverse row scatter
-    # (measured 10-36 ms at 403k lanes — the dominant sort-phase cost,
-    # PERF.md) disappears, and only w lanes are sorted instead of the
-    # 2w-3w launch concatenation.  Estimator-neutral (lane order never
+    # disappears, and only w lanes are sorted instead of the 2w-3w launch
+    # concatenation.  Estimator-neutral (lane order never
     # enters the estimator).  Off by default, on in bench/CLI.
     sort_state: bool = False
     # Active-lane compaction (core/integrator._compact): statically shrink
@@ -98,20 +98,18 @@ class RenderConfig:
     # bench.py / the CLI / the viewer turn it on.
     compact: bool = False
     # Width divisor per bounce iteration (last entry repeats): iteration i
-    # runs at ceil(n / compact_schedule[i]) lanes (rounded up to a 1024
-    # packet).  Divisors may be fractional.  The default tracks the
-    # measured bunny-bench occupancy collapse (primary hit rate 0.68,
-    # then 0.10, 0.04, <=0.01): bounce 0 sheds the 24% of lanes whose
-    # primary ray missed.  Schedules tighter than occupancy stay unbiased
-    # (RR reweighting) but raise tail-bounce variance; the default keeps
-    # RR rare even for closed scenes.  The v5e bunny sweep measured
-    # (1.3, 8, 32, 64) at 4.71 Mrays/s vs this default's 4.44 with 99.2%
-    # of segments surviving — open/sky scenes should pass the tighter
+    # runs at ceil(n / compact_schedule[i]) lanes (rounded up to a multiple
+    # of 1024).  Divisors may be fractional.  The default tracks the
+    # bunny-bench occupancy collapse (primary hit rate 0.68, then 0.10,
+    # 0.04, <=0.01 of the lanes): bounce 0 sheds the lanes whose primary
+    # ray missed.  Schedules tighter than occupancy stay unbiased (RR
+    # reweighting) but raise tail-bounce variance; the default keeps RR
+    # rare even for closed scenes.  Open/sky scenes can pass a tighter
     # schedule explicitly (bench.py does).
     compact_schedule: Tuple[float, ...] = (1.3, 4, 16, 32)
     # Cross-sample wavefront batching: trace all batch_spp samples of a
     # step as ONE path state (core/integrator.trace_paths_batched) so the
-    # samples' compacted tails pool into shared packet-aligned launches —
+    # samples' compacted tails pool into shared launches —
     # the 1024-lane width floor that kept tail iterations at ~0% occupancy
     # amortizes over the batch.  Requires compact=True and batch_spp > 1 to
     # have any effect; pair with a tail-tightened compact_schedule (the
@@ -129,9 +127,8 @@ class RenderConfig:
     # falls back to per-map fetches when the combined table would exceed
     # the in-module memory guard.
     packed_textures: bool = True
-    # Shading-gather fusion (round-5; PERF.md lever 1).  TPU gather cost is
-    # per-index, and env lookups are 4 of the ~8 row gathers each shading
-    # iteration pays:
+    # Shading-gather fusion: env lookups are 4 of the ~8 row gathers each
+    # shading iteration pays (their worth on the GPU is not measured yet):
     #   nee_env_nearest    — fetch the NEE radiance at the very texel the
     #       bin sampler drew (one gather, fused into the sample; no
     #       direction->equirect inverse) instead of bilinear at the
@@ -148,11 +145,8 @@ class RenderConfig:
     escape_env_nearest: bool = False
     # Trace occlusion rays (env + light NEE shadows) in their own any-hit
     # launch instead of batching them into the nearest-hit scatter launch.
-    # Measured on v5e (bunny bench): does NOT pay — 4.25 vs 4.30 Mrays/s
-    # and 2x the compile time (an extra any-hit kernel specialization per
-    # compaction width); the coherence sort already condenses parked lanes
-    # so the batched launch wastes little.  Kept as an off-by-default knob
-    # for scenes with much higher shadow-ray ratios (light NEE heavy).
+    # Off by default: it doubles the traversal specializations to compile;
+    # its worth on the GPU is not measured yet.
     split_shadow: bool = False
     # Area-light next-event estimation with MIS.  The reference shipped this
     # broken and disabled (dead lightTex/numLights uniforms, tracer.fs:18,27;
@@ -163,6 +157,11 @@ class RenderConfig:
     mode: str = "render"
     heatmap_scale: float = 0.001   # reference bvh_test.fs:229
     seed: int = 0
+
+    def __post_init__(self):
+        if self.intersector not in INTERSECTORS:
+            raise ValueError(f"intersector {self.intersector!r} is not one "
+                             f"of {INTERSECTORS}")
 
     @property
     def max_iters(self) -> int:

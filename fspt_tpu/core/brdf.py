@@ -22,6 +22,14 @@ M_TAU = 2.0 * M_PI
 INV_PI = 1.0 / M_PI
 
 
+def _sqrt0(x):
+    """sqrt(max(x, 0)) with gradient 0 where x <= 0.  The plain form's
+    gradient there is inf * 0 = NaN, which reaches the parameter gradients
+    (e.g. a GGX sample whose cos_theta rounds to 1 poisons d/d roughness)."""
+    pos = x > 0.0
+    return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, 1.0)), 0.0)
+
+
 def onb(normal: V3):
     """Orthonormal basis about `normal` — up-vector trick matching
     tracer.fs:259-261/275-277: up = |n.z| < 0.999 ? z : x."""
@@ -50,7 +58,7 @@ def smith_g(ndv, alpha_g):
     direction transmits nothing, so return 0 there instead."""
     a = alpha_g * alpha_g
     b = ndv * ndv
-    denom = ndv + jnp.sqrt(jnp.maximum(a + b - a * b, 0.0))
+    denom = ndv + _sqrt0(a + b - a * b)
     return jnp.where(denom > 1e-7, 1.0 / jnp.maximum(denom, 1e-7), 0.0)
 
 
@@ -77,7 +85,7 @@ def schlick(incident: V3, normal: V3, n1, n2):
     sin_theta2 = n * n * (1.0 - cos_theta * cos_theta)
     tir = (n1 > n2) & (sin_theta2 > 1.0)
     cos_theta = jnp.where(n1 > n2,
-                          jnp.sqrt(jnp.maximum(1.0 - sin_theta2, 0.0)),
+                          _sqrt0(1.0 - sin_theta2),
                           cos_theta)
     x = 1.0 - cos_theta
     f = r0 + (1.0 - r0) * x ** 5
@@ -90,7 +98,7 @@ def sample_microfacet(normal: V3, roughness, u1, u2) -> V3:
     a = jnp.maximum(0.001, roughness)
     phi = u1 * M_TAU
     cos_theta = jnp.sqrt((1.0 - u2) / (1.0 + (a * a - 1.0) * u2))
-    sin_theta = jnp.sqrt(jnp.maximum(1.0 - cos_theta ** 2, 0.0))
+    sin_theta = _sqrt0(1.0 - cos_theta ** 2)
     return (tangent * (sin_theta * jnp.cos(phi))
             + bitangent * (sin_theta * jnp.sin(phi))
             + normal * cos_theta)
@@ -150,7 +158,7 @@ def refract(incident_neg: V3, n: V3, eta) -> V3:
     ndi = dot(n, incident_neg)
     k = 1.0 - eta * eta * (1.0 - ndi * ndi)
     tir = k < 0.0
-    out = incident_neg * eta - n * (eta * ndi + jnp.sqrt(jnp.maximum(k, 0.0)))
+    out = incident_neg * eta - n * (eta * ndi + _sqrt0(k))
     zero = V3(jnp.zeros_like(out.x), jnp.zeros_like(out.y),
               jnp.zeros_like(out.z))
     return where(tir, zero, out)

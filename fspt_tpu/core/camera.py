@@ -5,7 +5,7 @@ Parity with reference shader/camera.fs: basis from view dir x world-up
 uniform disk of radius sqrt(2) px (:26-30), thin-lens DOF with
 lens_x = 1 - 1/focal_depth (:32-35,:44-45; encoding main.js:74).
 
-TPU-native: rays are produced directly in SoA form (V3 of flat (N,) planes);
+Rays are produced directly in SoA form (V3 of flat (N,) planes);
 no (N, 3) array ever exists on the hot path.
 
 Image convention: row 0 = top of image; GL's bottom-up fragment coords are

@@ -7,9 +7,9 @@ reference bilinearly filters raw 8-bit RGBE texels *before* decoding
 decode on the host and filter linear radiance, which is both correct and
 differentiable w.r.t. the env map.
 
-TPU-native layout: the env map lives as three flat (H*W,) channel planes;
-bilinear filtering is 12 flat gathers + lane-dense weight math (flat gathers
-are the one fast gather shape on TPU — see ops/traverse.py docstring).
+Layout: the env map lives as three flat (H*W,) channel planes, packed
+into row tables (pack_env_rows) so a bilinear lookup is a few row
+gathers.
 """
 
 from __future__ import annotations
@@ -48,10 +48,8 @@ def bilinear_wrap_x(env_rgb: V3, hw, u, v) -> V3:
     w11 = fx * fy
 
     # Row-packed gathers: one (N, 3) row gather per corner instead of three
-    # scalar-plane gathers — measured on v5e, a 48-wide row gather costs the
-    # same ~3 ms / 262k indices as a scalar gather, so this is ~3x cheaper.
-    # The stack is loop-invariant inside a sample step; XLA CSEs it across
-    # call sites.
+    # scalar-plane gathers.  The stack is loop-invariant inside a sample
+    # step; XLA CSEs it across call sites.
     rows = jnp.stack([env_rgb.x, env_rgb.y, env_rgb.z], axis=-1)
     out = (rows[i00] * w00[:, None] + rows[i10] * w10[:, None]
            + rows[i01] * w01[:, None] + rows[i11] * w11[:, None])
@@ -61,8 +59,8 @@ def bilinear_wrap_x(env_rgb: V3, hw, u, v) -> V3:
 def pack_env_rows(env_rgb: V3, hw):
     """(H*W, 6) x-neighbor-packed env table: row (y, x) holds
     [rgb(x), rgb(x+1 mod W)].  Bilinear filtering then needs TWO row
-    gathers (y0 and y1) instead of four corner gathers — TPU gather cost
-    is per-index.  Built once per traced sample (differentiable: its VJP
+    gathers (y0 and y1) instead of four corner gathers.  Built once per
+    traced sample (differentiable: its VJP
     scatters back onto the env planes, a train-step parameter)."""
     h, w = hw
     rgb = jnp.stack([env_rgb.x, env_rgb.y, env_rgb.z],
@@ -95,8 +93,7 @@ def env_radiance_rows(env6, hw, direction: V3, theta) -> V3:
 
 def env_radiance_rows_nearest(env6, hw, direction: V3, theta) -> V3:
     """Nearest-texel radiance from the pack_env_rows table: ONE row gather
-    (vs bilinear's two).  TPU gather cost is per-index (PERF.md), and
-    secondary-bounce env lookups land on rough-surface paths where the
+    (vs bilinear's two).  Secondary-bounce env lookups land on rough-surface paths where the
     filtering mode is visually irrelevant — the production config
     (cfg.escape_env_nearest) uses this for scatter-ray escape radiance
     while primary-miss backgrounds stay bilinear."""
@@ -160,8 +157,7 @@ def sample_env_bins(bins, n_bins, env_hw, theta, u1, u2, u3):
     """Draw env directions from the radiance bins (tracer.fs:421-434).
 
     bins: 4-tuple of flat (B,) planes [x0, y0, x1, y1] in pixels, or one
-    (B, 4) row table (one gather instead of four — TPU gather cost is
-    per-index); n_bins: traced scalar; env_hw: static (H, W).
+    (B, 4) row table (one gather instead of four); n_bins: traced scalar; env_hw: static (H, W).
     Returns (dir V3 (N,), pdf (N,)).
     """
     h, w = env_hw

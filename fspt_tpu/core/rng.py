@@ -15,11 +15,8 @@ Generator choice: the per-sample key is jax.random (threefry) — one host
 fold_in per sample, quality where it is cheap.  The per-lane/per-stream
 values are PCG4D (Jarzynski & Olano, "Hash Functions for GPU Rendering",
 JCGT 2020) over the counter (lane, k0, k1, stream<<8|row): ~15 vectorized
-u32 ops per value.  The previous implementation vmapped threefry fold_in
-per lane; measured on v5e that cost ~30 ms per 262k-lane stream call —
-~10 calls per sample step made the RNG the single largest cost of the
-whole renderer (~100 ms of a 146 ms sample).  PCG4D passes the same
-white-furnace and chi-square suites (tests/test_oracle.py) at <0.3 ms.
+u32 ops per value, instead of a threefry fold_in per lane.  PCG4D passes
+the white-furnace and chi-square suites (tests/test_oracle.py).
 """
 
 from __future__ import annotations

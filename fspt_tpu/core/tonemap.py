@@ -5,9 +5,9 @@ Parity with reference shader/draw.fs: 5x5 neighborhood sigma-clamp firefly
 filter (:50-80), exposure multiply (:85-87), Stephen Hill's ACES fit
 (:19-48), saturation mix against luma (:90), gamma 1/2.2 (:91).
 
-TPU-native: images are (3, H, W) channel planes (lane-dense); the channel
-mixes of the ACES matrices are unrolled scalar*plane combinations instead of
-(H, W, 3) @ (3, 3) matmuls (which force degenerate 3-lane layouts).
+Images are (3, H, W) channel planes; the channel mixes of the ACES
+matrices are unrolled scalar*plane combinations instead of (H, W, 3) @
+(3, 3) matmuls (which would also run in TF32 on the GPU by default).
 
 Deviation: the reference's texelFetch at image borders reads out-of-bounds
 (undefined in GLSL); we clamp to edge.

@@ -1,5 +1,7 @@
-"""Batched BVH traversal: the TPU-native replacement for the reference's
-per-thread stack walk (reference tracer.fs:366-404 intersectScene).
+"""Batched binary-BVH traversal in plain jnp: the reference's per-thread
+stack walk (reference tracer.fs:366-404 intersectScene) over the binary
+tree, used by autofocus and as a test oracle (the renderer walks the wide
+tables, ops/bvh.py).
 
 Design: rays advance in lockstep through a masked `lax.while_loop`; each ray
 carries its own current-node index and a fixed-depth stack (the reference uses

@@ -1,10 +1,9 @@
-"""Structure-of-arrays 3-vectors: the TPU-native data layout of the core.
+"""Structure-of-arrays 3-vectors: the data layout of the core.
 
 The reference stores vectors as 3-element JS arrays / GLSL vec3
-(reference vector.js).  On TPU an (N, 3) array wastes 125 of 128 vector
-lanes on every elementwise op and turns component access into cross-lane
-relayouts, so the entire compute core instead carries a `V3` of three flat
-(N,) planes — each op runs lane-dense on the VPU.
+(reference vector.js).  The compute core instead carries a `V3` of three
+flat (N,) planes, so each op is a contiguous elementwise pass over N
+values and XLA fuses whole chains of them.
 """
 
 from __future__ import annotations

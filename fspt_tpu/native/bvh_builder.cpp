@@ -1,6 +1,6 @@
 // Native binned-SAH BVH builder.
 //
-// TPU-native framework role: the reference builds its BVH in JavaScript with
+// Role: the reference builds its BVH in JavaScript with
 // a full-sweep SAH per node (reference bvh.js:19-31,168-197) which is
 // tolerable at browser scales but dominates scene compile here (the NumPy
 // full-sweep oracle in scene/bvh.py takes ~4s at 82k triangles).  This C++

@@ -1,21 +1,16 @@
-"""Pack the host-built BVH into the lane-dense VMEM tables the Pallas
-packet-traversal kernel (ops/traverse.py) consumes.
+"""Pack the host-built BVH into the row tables the wide-BVH traversal
+(ops/bvh.py) reads.
 
 The binary SAH tree (scene/bvh.py, semantics of reference bvh.js) is
-collapsed into a **wide BVH** (8- or 16-ary) at pack time: a traversal
-visit then tests all child AABBs in one VPU pass instead of two, which
-cuts visited-node count for the same vector cost per test and shrinks
-the shared packet stack.  Wide children are ordered along the parent's
-principal axis so the kernel can push near-to-far with one scalar sign
-check (no per-visit sorting).
+collapsed into a **wide BVH** (8- or 16-ary) at pack time: one visit then
+fetches one row and tests all child boxes, which cuts visited-node count
+and stack depth.  Wide children are ordered along the parent's principal
+axis so a ray can push them far-to-near with one sign check of its
+direction (no per-visit sorting).
 
-Width choice: the per-visit cost of the walk kernel (ops/traverse3.py) is
-dominated by the SERIAL dynamic row fetch, not the vector tests, so wider
-nodes are nearly free pruning — 16-wide packs 16 children into the SAME
-one-row fetch (113 of 128 lanes used vs 57 for 8-wide), drops a tree
-level, and measured ~35%% fewer walk-visits on the bunny bench.  8-wide
-remains for the v1 packet kernel (ops/traverse.py), which extracts node
-fields to scalars and would pay 2x for 16.
+Width: 16-wide packs 16 children into the same 512 B row (113 of 128
+lanes used vs 57 for 8-wide) and drops a tree level; the loaders default
+to 8-wide.  Which width is faster on the GPU is not measured yet.
 
 Layout (width w = 8 or 16; lane offsets scale with w):
 
@@ -27,19 +22,19 @@ Layout (width w = 8 or 16; lane offsets scale with w):
       lanes [6*w:7*w]  child links      [7*w] sort axis (0/1/2)
   Links are exact small floats: ``link >= 0`` is a wide-node ordinal,
   ``link < 0`` is ``-(leaf_ordinal + 1)``.  Empty child slots carry link
-  ``EMPTY_LINK`` (-1e9) which the kernel masks out of the descent vote —
+  ``EMPTY_LINK`` (-1e9) which the traversal masks out of the descent —
   the slab test alone cannot reject them, because with per-axis min/max
   reordering an "inverted" box behaves like one spanning [-BIG, +BIG].
 * ``leaves``: (L, 128) float32 — one leaf per row, ``leaf_size`` triangles
   at lanes 9*k .. 9*k+9 as [v0, e1, e2].  Padding slots are all-zero
   (degenerate => det == 0 => never hit, same convention as SceneArrays).
   A leaf's global slot base is ``leaf_ordinal * leaf_size`` — identical to
-  the SceneArrays padded-slot indexing, so hits from the packet kernel and
-  the jnp reference traversal are interchangeable.
+  the SceneArrays padded-slot indexing, so hits from the wide traversal and
+  the binary jnp reference traversal are interchangeable.
 
 The reference's analog of this file is main.js:360-392 (flattening the BVH
-into padded float textures for texelFetch); here the flattening targets VMEM
-rows fetched with dynamic row slices.
+into padded float textures for texelFetch); here the flattening targets
+device-memory rows fetched per ray.
 """
 
 from __future__ import annotations
@@ -50,14 +45,14 @@ import numpy as np
 
 
 BIG = np.float32(3.0e38)      # empty-child box coords (masked via link)
-EMPTY_LINK = np.float32(-1.0e9)   # empty-child link sentinel (kernel masks)
+EMPTY_LINK = np.float32(-1.0e9)   # empty-child link sentinel (masked)
 WIDTH = 8                     # default wide-BVH branching factor
 
 
 class PackedBVH(NamedTuple):
     nodes: np.ndarray      # (W, 128) f32 — one wide node per row
     leaves: np.ndarray     # (L, 128) f32
-    depth: int             # wide-tree depth (root = 0); sizes the kernel
+    depth: int             # wide-tree depth (root = 0); sizes the
     #                        traversal stack: max ptr <= width * (depth + 2)
     width: int = WIDTH     # branching factor (8 or 16)
     # (W, width) i32: the BINARY node id each wide child slot was collapsed

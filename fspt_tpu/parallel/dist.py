@@ -10,8 +10,9 @@ Design (see also BASELINE.md north star):
     gradient sync.
 
 Multi-host: build the mesh over jax.devices() after
-jax.distributed.initialize(); the same shard_map code rides ICI within a
-slice and DCN across hosts.
+jax.distributed.initialize(); the same shard_map code spans the cards of
+one host and several hosts.  The mesh is 1-D: the four cards of a host are
+joined all to all, so no mesh shape follows a topology.
 """
 
 from __future__ import annotations
@@ -162,7 +163,7 @@ def make_train_step(mesh: Mesh, cfg: RenderConfig, meta):
 
     target: (3, N) sharded over rays (tile order).  Gradients of the
     replicated parameters are psum'd across the mesh — the all-reduce the
-    reference never needed (single GPU) but a pod does.
+    reference never needed (single GPU) but several devices do.
     """
     axis = mesh.axis_names[0]
     n_dev = mesh.devices.size

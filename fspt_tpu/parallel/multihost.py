@@ -1,16 +1,17 @@
-"""Multi-host bring-up: the pod-scale entry the single-browser reference
-never needed (SURVEY §5 distributed-communication gap).
+"""Multi-host bring-up: the multi-machine entry the single-browser
+reference never needed (SURVEY §5 distributed-communication gap).
 
-Usage on every host of a pod slice / multi-slice DCN job:
+Usage on every host of the job:
 
     from fspt_tpu.parallel import multihost
-    multihost.initialize()                  # jax.distributed handshake
-    mesh = multihost.global_mesh()          # 1-D "rays" mesh over all chips
+    multihost.initialize(coordinator_address="host0:port",
+                         num_processes=N, process_id=i)
+    mesh = multihost.global_mesh()          # 1-D "rays" mesh, all devices
     step = dist.make_sharded_sample_step(mesh, cfg, scene.meta)
 
-Rendering then shards framebuffer tiles over every chip in the job; the
-scene pytree is replicated; gradient psums ride ICI within a slice and DCN
-across hosts — standard JAX collectives, no bespoke transport.
+Rendering then shards framebuffer tiles over every device in the job; the
+scene pytree is replicated; gradient reductions are standard JAX
+collectives (NCCL between GPUs), no bespoke transport.
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ Two numbers per mesh size:
   mesh, where xla_force_host_platform_device_count=8 on a 2-core VM makes
   wall-clock measurements physically meaningless.
 * **wall-clock rays/s** — informational; trustworthy only when devices are
-  real chips (1 chip here; a pod via jax.distributed.initialize).
+  real accelerators.
 """
 
 from __future__ import annotations

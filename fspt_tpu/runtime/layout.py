@@ -1,9 +1,9 @@
-"""Framebuffer pixel layout: tile order for packet coherence.
+"""Framebuffer pixel layout: tile order for traversal coherence.
 
-The Pallas traversal kernel walks rays in 1024-lane packets that share one
-node stack; packet cost is the union of its rays' BVH paths, so packets
-should be *square image tiles*, not raster rows.  Measured on v5e: 32x32
-tiles cut mean visited nodes ~3.5x vs 1024-pixel raster strips.
+Neighbouring traversal lanes should trace neighbouring pixels, so that one
+warp's rays fetch the same BVH rows: lanes run in *square image tiles*
+(32x32), not raster rows.  What the tile order is worth on the GPU is not
+measured yet.
 
 The renderer therefore keeps the accumulation buffer in tile order for the
 whole progressive loop and un-permutes once at image-assembly time (host

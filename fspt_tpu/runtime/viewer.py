@@ -16,7 +16,7 @@ Reference parity (main.js:619-739 initEvents, :838-857 tick):
     re-implementation.
 
 The UI is a single self-contained HTML page served by a stdlib HTTP server
-(the TPU-host analog of the reference's static page + DOM form): the page
+(the host-side analog of the reference's static page + DOM form): the page
 posts input events and polls PNG frames; all rendering stays on the device.
 Run:  python -m fspt_tpu view scenes/dungeon.json --port 8787
 """
@@ -172,7 +172,8 @@ class InteractiveViewer:
 
     def _publish(self, r: Renderer, preview: bool):
         img = np.clip(r.image(), 0.0, 1.0)
-        from PIL import Image
+        from fspt_tpu.io.image import pil_image_module
+        Image = pil_image_module()
         buf = io.BytesIO()
         im = Image.fromarray((img * 255.0 + 0.5).astype(np.uint8))
         if preview:

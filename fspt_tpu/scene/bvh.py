@@ -10,7 +10,7 @@ Semantics-parity with reference bvh.js:5-198:
   * DFS-preorder serialization: node = [left, right, tri_offset | min | max]
     (reference main.js:360-392); leaf triangles are re-ordered contiguously.
 
-TPU-specific departure: every leaf's triangle run is padded to exactly
+Departure: every leaf's triangle run is padded to exactly
 `leaf_size` slots with degenerate (never-hit) triangles so the device-side
 leaf test is a fixed-size vector op with no per-leaf count gather.  The
 unpadded JS layout (processLeaf always reads LEAF_SIZE tris, overrunning into

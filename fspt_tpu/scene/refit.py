@@ -22,8 +22,7 @@ geometry; the refit tree keeps base-frame topology, so its SAH quality
 degrades gracefully with large motions — the standard refit trade-off),
 and no host round-trip or recompilation happens per frame: the arrays
 pytree keeps its shapes, so the renderer's jitted step is reused as-is.
-Measured at bench scale (81,922 tris, v5e): host rebuild 890 ms/frame
-vs jitted refit 18.4 ms/frame — ~48x.
+What the refit saves per frame on the GPU is not measured yet.
 
 Delta affines are derived by probing the SAME host transform pipeline the
 scene compiler uses (scene/transforms.apply_prop_transforms), so refit
@@ -42,6 +41,11 @@ import numpy as np
 from fspt_tpu.core.vec import V3
 from fspt_tpu.ops.packing import BIG
 from fspt_tpu.scene.transforms import apply_prop_transforms
+
+# float32 products on the GPU may run in TF32 (about 3 decimal digits)
+# unless asked otherwise, which would move refitted boxes and triangles
+# off the host rebuild's
+_HIGHEST = "highest"
 
 
 class RefitAux(NamedTuple):
@@ -146,10 +150,10 @@ def refit_arrays(arrays, meta, aux: RefitAux, mats, trans):
     T = jnp.asarray(trans)[pid]                      # (S, 3)
 
     def xf_pts(p):                                   # points: M p + t
-        return jnp.einsum("sij,sj->si", M, p) + T
+        return jnp.einsum("sij,sj->si", M, p, precision=_HIGHEST) + T
 
     def xf_vec(v):                                   # vectors: M v
-        return jnp.einsum("sij,sj->si", M, v)
+        return jnp.einsum("sij,sj->si", M, v, precision=_HIGHEST)
 
     keep = valid[:, None]
     v0 = jnp.where(keep, xf_pts(arrays.tri_v0), 0.0)
@@ -222,7 +226,8 @@ def refit_arrays(arrays, meta, aux: RefitAux, mats, trans):
 
     def lv(v3: V3, pts: bool):
         v = jnp.stack([v3.x, v3.y, v3.z], axis=-1)
-        out = jnp.einsum("sij,sj->si", Ml, v) + (Tl if pts else 0.0)
+        out = (jnp.einsum("sij,sj->si", Ml, v, precision=_HIGHEST)
+               + (Tl if pts else 0.0))
         return jnp.where(lmask, out, v)
     nl_v0 = lv(arrays.light_v0, True)
     nl_e1 = lv(arrays.light_e1, False)

@@ -6,12 +6,11 @@ This replaces the reference's texture/uniform upload contract
 TEXTURE_2D_ARRAY atlas + uniform arrays) with a single pytree of plain device
 arrays — the part of the reference SURVEY.md says to *replace*, not replicate.
 
-TPU-native layout rules (learned from on-chip microbenchmarks):
-  * everything the integrator gathers per-ray is a FLAT (S,) plane — the one
-    gather shape XLA lowers efficiently on TPU; (N, 3)-style arrays waste
-    125/128 vector lanes and relayout on every access
-  * the BVH is packed into VMEM row tables for the Pallas packet kernel
-    (ops/packing.py)
+Layout rules:
+  * per-slot shading attributes are FLAT (S,) planes, stacked into row
+    tables once per traced sample (core/integrator._attr_table)
+  * the BVH is packed into wide-node row tables for the traversal
+    (ops/packing.py, ops/bvh.py)
 
 Scene JSON schema parity (reference README + main.js:51-75,915-950):
   environment (path | gradient stops), environmentTheta, cameraPos, cameraDir,
@@ -85,7 +84,7 @@ class SceneArrays(NamedTuple):
     # is that material's (diffuse, emissive, normal, mr) atlas layers.  The
     # integrator packs the four maps' texels into one row table at trace
     # time so a shading point costs 2 row gathers instead of 16
-    # (core/integrator._packed_tables; TPU gathers cost per-index).
+    # (core/integrator._packed_tables).
     map_c: np.ndarray           # (S,) i32 combined-material id
     mat_layers: np.ndarray      # (U, 4) i32 source atlas layers per id
     emit: V3                    # per-slot constant emittance
@@ -131,14 +130,11 @@ class SceneMeta:
     atlas_res: int
     atlas_layers: int
     leaf_size: int
-    # traversal stack bound for the packet kernel, sized from the wide
-    # tree depth at pack time (ops/packing.py): max ptr <= w * (depth + 2)
+    # traversal stack bound (ops/bvh.py), sized from the wide tree depth
+    # at pack time (ops/packing.py): max ptr <= w * (depth + 2)
     pk_stack_depth: int = 64
-    # wide-BVH branching factor of the packed tables (8 or 16).  Measured
-    # on v5e (bunny bench): 16-wide does NOT pay — the greedy collapse
-    # under-fills 16-ary nodes on leaf-heavy trees (walk-visits only -7%)
-    # while per-visit cost scales with width (275 -> 556 ns/visit), so 8
-    # stays the default; the knob remains for denser interior topologies.
+    # wide-BVH branching factor of the packed tables (8 or 16); 8 is the
+    # default, which width is faster on the GPU is not measured yet.
     bvh_width: int = 8
 
 
@@ -180,8 +176,8 @@ class AssetLoader:
             return f.read()
 
     def image(self, path: str) -> np.ndarray:
-        from PIL import Image
-        with Image.open(os.path.join(self.root, path)) as im:
+        from fspt_tpu.io.image import pil_image_module
+        with pil_image_module().open(os.path.join(self.root, path)) as im:
             return np.asarray(im.convert("RGBA"))
 
     def exists(self, path: str) -> bool:

@@ -192,11 +192,9 @@ def make_test_scene(subdivisions: int = 2, textured: bool = False,
         "atlasRes": 64,
         "props": [sphere_prop, floor_prop],
     }
-    # width 8 so tests can drive BOTH kernels (the v1 packet kernel reads
-    # the 8-wide layout only).  The production/bench loaders also default
-    # to 8 (16-wide measured slower, scene/schema.py); the 16-wide pack/
-    # traverse generalization is covered by tests/test_fastbvh.py's
-    # parametrized width-16 hit-parity test.
+    # width 8, the loaders' default; the 16-wide pack/traverse
+    # generalization is covered by tests/test_fastbvh.py's width-16
+    # hit-parity test.
     return load_scene_dict(scene, loader, leaf_size=leaf_size,
                            env_bins_cap=env_bins_cap, name="procedural",
                            bvh_width=bvh_width)

@@ -87,18 +87,24 @@ def test_traversal_visit_counts_reasonable(small_scene):
     assert int(hit.visits[0]) <= len(arrays.node_left) * 2
 
 
-@pytest.mark.parametrize("impl", ["packet", "walk"])
+def _walk(impl):
+    """The wide-BVH traversal under test: the Pallas kernel in interpret
+    mode, or the plain jnp walk (ops/bvh.py)."""
+    import functools
+    from fspt_tpu.ops import bvh
+    if impl == "kernel":
+        return functools.partial(bvh.walk_kernel, interpret=True)
+    return bvh.walk_plain
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
 def test_packet_traverse_matches_brute(small_scene, impl):
-    """Pallas kernels (interpret mode on CPU) vs brute oracle — both the
-    1024-ray packet kernel (v1) and the 8x128 multiwalk kernel (v3)."""
-    import jax
+    """Wide-BVH traversal (kernel in interpret mode, and the plain walk) vs
+    the brute-force oracle: slots, t, and barycentrics."""
     from fspt_tpu.core.vec import V3
-    from fspt_tpu.ops.traverse import packet_traverse
-    from fspt_tpu.ops.traverse3 import packet_traverse3
-    packet_traverse = (packet_traverse if impl == "packet"
-                       else packet_traverse3)
 
     arrays = small_scene.device_arrays()
+    meta = small_scene.meta
     rng = np.random.default_rng(11)
     n = 2048
     o = rng.uniform(-2, 2, size=(3, n)).astype(np.float32)
@@ -106,8 +112,8 @@ def test_packet_traverse_matches_brute(small_scene, impl):
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     origin = V3(*jnp.asarray(o))
     direction = V3(*jnp.asarray(d))
-    hit = packet_traverse(arrays.pk_nodes, arrays.pk_leaves, origin,
-                          direction, leaf_size=8, interpret=True)
+    hit = _walk(impl)(arrays.pk_nodes, arrays.pk_leaves, origin, direction,
+                      leaf_size=8, stack_depth=meta.pk_stack_depth)
     brt = intersect_scene_brute(arrays, jnp.asarray(o.T), jnp.asarray(d.T))
     np.testing.assert_array_equal(np.asarray(hit.slot), np.asarray(brt.slot))
     hits = np.asarray(hit.slot) >= 0
@@ -124,13 +130,9 @@ def test_packet_traverse_matches_brute(small_scene, impl):
     assert err.max() < 1e-3
 
 
-@pytest.mark.parametrize("impl", ["packet", "walk"])
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
 def test_packet_any_hit_matches_occlusion(small_scene, impl):
     from fspt_tpu.core.vec import V3
-    from fspt_tpu.ops.traverse import packet_traverse
-    from fspt_tpu.ops.traverse3 import packet_traverse3
-    packet_traverse = (packet_traverse if impl == "packet"
-                       else packet_traverse3)
 
     arrays = small_scene.device_arrays()
     rng = np.random.default_rng(12)
@@ -138,9 +140,10 @@ def test_packet_any_hit_matches_occlusion(small_scene, impl):
     o = rng.uniform(-1, 1, size=(3, n)).astype(np.float32)
     d = rng.normal(size=(3, n)).astype(np.float32)
     d /= np.linalg.norm(d, axis=0, keepdims=True)
-    hit = packet_traverse(arrays.pk_nodes, arrays.pk_leaves,
-                          V3(*jnp.asarray(o)), V3(*jnp.asarray(d)),
-                          leaf_size=8, any_hit=True, interpret=True)
+    hit = _walk(impl)(arrays.pk_nodes, arrays.pk_leaves,
+                      V3(*jnp.asarray(o)), V3(*jnp.asarray(d)),
+                      leaf_size=8, any_hit=True,
+                      stack_depth=small_scene.meta.pk_stack_depth)
     brt = intersect_scene_brute(arrays, jnp.asarray(o.T), jnp.asarray(d.T))
     np.testing.assert_array_equal(np.asarray(hit.slot) >= 0,
                                   np.asarray(brt.slot) >= 0)

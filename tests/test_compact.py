@@ -23,7 +23,7 @@ asserts its intended regime really occurred instead of vacuously passing
 on a full-width no-op (round-3 ADVICE item 1).
 
 (The reference has no analog — a WebGL fragment shader retires dead pixels
-for free; on TPU static shapes make this an explicit, testable subsystem.
+for free; XLA's static shapes make this an explicit, testable subsystem.
 Reference bounce loop: /root/reference/shader/tracer.fs:436-518.)
 """
 

@@ -148,21 +148,24 @@ def test_fastbvh_speed():
     assert dt < budget, f"build took {dt:.2f}s"
 
 
-def test_width16_pack_traverse_hit_parity(rng):
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_width16_pack_traverse_hit_parity(rng, impl):
     """The 16-wide pack/traverse generalization (kept as a knob; the
     loaders default to 8-wide) must find the same nearest hits as the
-    8-wide path (round-3 ADVICE item 3: the knob was untested)."""
+    8-wide path, in the kernel (interpret mode) and the plain walk."""
+    import functools
     import jax.numpy as jnp
     from fspt_tpu.core.vec import V3
-    from fspt_tpu.ops import packing
-    from fspt_tpu.ops.traverse3 import packet_traverse3
+    from fspt_tpu.ops import bvh, packing
 
+    walk = (functools.partial(bvh.walk_kernel, interpret=True)
+            if impl == "kernel" else bvh.walk_plain)
     verts = _random_tris(800, rng)
     tmin, tmax = triangle_aabbs(verts)
-    bvh = build_bvh_fast(tmin, tmax, leaf_size=8)
-    gather = np.where(bvh.slot_tri < 0, 0, bvh.slot_tri)
+    bvh_tree = build_bvh_fast(tmin, tmax, leaf_size=8)
+    gather = np.where(bvh_tree.slot_tri < 0, 0, bvh_tree.slot_tri)
     v = verts[gather]
-    v[bvh.slot_tri < 0] = 0.0
+    v[bvh_tree.slot_tri < 0] = 0.0
     tri_v0, tri_e1, tri_e2 = v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
 
     n = 1024
@@ -174,123 +177,41 @@ def test_width16_pack_traverse_hit_parity(rng):
 
     hits = {}
     for width in (8, 16):
-        pk = packing.pack_bvh(bvh.left, bvh.right, bvh.tri_offset,
-                              bvh.node_min, bvh.node_max,
-                              tri_v0, tri_e1, tri_e2, leaf_size=8,
-                              width=width)
-        hits[width] = packet_traverse3(
-            jnp.asarray(pk.nodes), jnp.asarray(pk.leaves), O, D,
-            leaf_size=8, stack_depth=width * (pk.depth + 2),
-            interpret=True, tree_width=width)
+        pk = packing.pack_bvh(bvh_tree.left, bvh_tree.right,
+                              bvh_tree.tri_offset, bvh_tree.node_min,
+                              bvh_tree.node_max, tri_v0, tri_e1, tri_e2,
+                              leaf_size=8, width=width)
+        hits[width] = walk(jnp.asarray(pk.nodes), jnp.asarray(pk.leaves),
+                           O, D, leaf_size=8, width=width,
+                           stack_depth=width * (pk.depth + 2))
     np.testing.assert_allclose(np.asarray(hits[8].t),
                                np.asarray(hits[16].t), rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(np.asarray(hits[8].slot),
                                   np.asarray(hits[16].slot))
 
 
-def test_split_kernel_hit_parity(rng):
-    """The v4 phase-split walk kernel (ops/traverse4.py) must find the
-    same nearest hits (t, slot, u, v) as the v3 fused kernel — the phase
-    split reorders leaf tests but every wanted leaf is still tested, so
-    results are identical up to coplanar ties.  Also covers any_hit
-    early-exit semantics."""
-    import jax.numpy as jnp
-    from fspt_tpu.core.vec import V3
-    from fspt_tpu.ops import packing
-    from fspt_tpu.ops.traverse3 import packet_traverse3
-    from fspt_tpu.ops.traverse4 import packet_traverse4
-
-    # sized for interpret-mode wall-clock: the multi-pop kernel unrolls
-    # deeply, and interpret cost scales with tris x rays x visits
-    verts = _random_tris(400, rng)
-    tmin, tmax = triangle_aabbs(verts)
-    bvh = build_bvh_fast(tmin, tmax, leaf_size=8)
-    gather = np.where(bvh.slot_tri < 0, 0, bvh.slot_tri)
-    v = verts[gather]
-    v[bvh.slot_tri < 0] = 0.0
-    tri_v0, tri_e1, tri_e2 = v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
-    pk = packing.pack_bvh(bvh.left, bvh.right, bvh.tri_offset,
-                          bvh.node_min, bvh.node_max,
-                          tri_v0, tri_e1, tri_e2, leaf_size=8, width=8)
-    nodes = jnp.asarray(pk.nodes)
-    leaves = jnp.asarray(pk.leaves)
-
-    n = 1024
-    origin = rng.uniform(-2, 2, size=(3, n)).astype(np.float32)
-    d = rng.normal(size=(3, n)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=0, keepdims=True)
-    O = V3(*(jnp.asarray(x) for x in origin))
-    D = V3(*(jnp.asarray(x) for x in d))
-    sd = 8 * (pk.depth + 2)
-
-    h3 = packet_traverse3(nodes, leaves, O, D, leaf_size=8,
-                          stack_depth=sd, interpret=True)
-    h4 = packet_traverse4(nodes, leaves, O, D, leaf_size=8,
-                          stack_depth=sd, interpret=True)
-    np.testing.assert_allclose(np.asarray(h3.t), np.asarray(h4.t),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(h3.slot), np.asarray(h4.slot))
-    np.testing.assert_allclose(np.asarray(h3.u), np.asarray(h4.u),
-                               rtol=1e-4, atol=1e-5)
-    # any-hit: both kernels must agree on WHETHER each ray is occluded
-    a3 = packet_traverse3(nodes, leaves, O, D, leaf_size=8,
-                          stack_depth=sd, any_hit=True, interpret=True)
-    a4 = packet_traverse4(nodes, leaves, O, D, leaf_size=8,
-                          stack_depth=sd, any_hit=True, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a3.slot) >= 0,
-                                  np.asarray(a4.slot) >= 0)
-    # per-ray tmax clipping parity (shadow-ray path)
-    tm = jnp.asarray(rng.uniform(0.05, 1.5, size=n).astype(np.float32))
-    c3 = packet_traverse3(nodes, leaves, O, D, tm, leaf_size=8,
-                          stack_depth=sd, interpret=True)
-    c4 = packet_traverse4(nodes, leaves, O, D, tm, leaf_size=8,
-                          stack_depth=sd, interpret=True)
-    np.testing.assert_allclose(np.asarray(c3.t), np.asarray(c4.t),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(c3.slot), np.asarray(c4.slot))
-
-
-def test_vmem_budget_guardrail():
-    """A scene too large for the VMEM-resident kernel must fail with a
-    one-line actionable error, not a Mosaic allocation crash (round-2
-    VERDICT weak #6).  500k tris => ~62k leaf rows => ~32 MiB of tables."""
-    import numpy as np
-    import pytest
-    from fspt_tpu.core.vec import V3
-    from fspt_tpu.ops.traverse import packet_traverse
-
-    nodes = np.zeros((9000, 128), np.float32)
-    leaves = np.zeros((63000, 128), np.float32)
-    rays = V3(*(np.zeros((128,), np.float32) for _ in range(3)))
-    with pytest.raises(ValueError, match="VMEM"):
-        packet_traverse(nodes, leaves, rays, rays, interpret=True)
-
-
 def test_big_scene_hbm_traversal(rng):
-    """Scenes past the VMEM table budget traverse via the HBM-resident DMA
-    path (round-3 VERDICT missing #2): a 220k-tri soup (~14 MiB of packed
-    tables > the 12 MiB budget) must (a) be the configuration the
-    integrator auto-selects table_hbm for, and (b) return the same nearest
-    hits as the jnp binary-BVH reference traversal."""
+    """A 220k-tri soup (~14 MiB of packed tables) traverses with the tables
+    in device memory and no size budget: the kernel (interpret mode) must
+    return the same nearest hits as the jnp binary-BVH reference
+    traversal."""
     import jax.numpy as jnp
     from fspt_tpu.core.traversal import intersect_scene
     from fspt_tpu.core.vec import V3
-    from fspt_tpu.ops import packing
-    from fspt_tpu.ops.traverse import tables_fit_vmem
-    from fspt_tpu.ops.traverse3 import packet_traverse3
+    from fspt_tpu.ops import bvh, packing
 
     n_tri = 220_000
     verts = _random_tris(n_tri, rng)
     tmin, tmax = triangle_aabbs(verts)
-    bvh = build_bvh_fast(tmin, tmax, leaf_size=8)
-    g = np.where(bvh.slot_tri < 0, 0, bvh.slot_tri)
+    bvh_tree = build_bvh_fast(tmin, tmax, leaf_size=8)
+    g = np.where(bvh_tree.slot_tri < 0, 0, bvh_tree.slot_tri)
     v = verts[g]
-    v[bvh.slot_tri < 0] = 0.0
+    v[bvh_tree.slot_tri < 0] = 0.0
     tri_v0, tri_e1, tri_e2 = v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
-    pk = packing.pack_bvh(bvh.left, bvh.right, bvh.tri_offset,
-                          bvh.node_min, bvh.node_max,
+    pk = packing.pack_bvh(bvh_tree.left, bvh_tree.right, bvh_tree.tri_offset,
+                          bvh_tree.node_min, bvh_tree.node_max,
                           tri_v0, tri_e1, tri_e2, leaf_size=8)
-    assert not tables_fit_vmem(pk.nodes, pk.leaves)  # really over budget
+    assert (pk.nodes.nbytes + pk.leaves.nbytes) > 12 * 2 ** 20
 
     m = 512
     o = rng.uniform(-2, 2, size=(3, m)).astype(np.float32)
@@ -298,10 +219,9 @@ def test_big_scene_hbm_traversal(rng):
     d /= np.linalg.norm(d, axis=0)
     O = V3(*map(jnp.asarray, o))
     D = V3(*map(jnp.asarray, d))
-    hit = packet_traverse3(jnp.asarray(pk.nodes), jnp.asarray(pk.leaves),
-                           O, D, leaf_size=8,
-                           stack_depth=8 * (pk.depth + 2),
-                           interpret=True, table_hbm=True)
+    hit = bvh.walk_kernel(jnp.asarray(pk.nodes), jnp.asarray(pk.leaves),
+                          O, D, leaf_size=8, stack_depth=8 * (pk.depth + 2),
+                          interpret=True)
 
     class A:
         pass
@@ -310,12 +230,12 @@ def test_big_scene_hbm_traversal(rng):
     a.tri_v0 = jnp.asarray(tri_v0)
     a.tri_e1 = jnp.asarray(tri_e1)
     a.tri_e2 = jnp.asarray(tri_e2)
-    a.node_left = jnp.asarray(bvh.left)
-    a.node_right = jnp.asarray(bvh.right)
-    a.node_tri = jnp.asarray(bvh.tri_offset)
-    a.node_min = jnp.asarray(bvh.node_min)
-    a.node_max = jnp.asarray(bvh.node_max)
+    a.node_left = jnp.asarray(bvh_tree.left)
+    a.node_right = jnp.asarray(bvh_tree.right)
+    a.node_tri = jnp.asarray(bvh_tree.tri_offset)
+    a.node_min = jnp.asarray(bvh_tree.node_min)
+    a.node_max = jnp.asarray(bvh_tree.node_max)
     ref = intersect_scene(a, jnp.asarray(o.T), jnp.asarray(d.T), leaf_size=8,
-                          stack_depth=2 * (bvh.depth + 2))
+                          stack_depth=2 * (bvh_tree.depth + 2))
     np.testing.assert_allclose(np.asarray(hit.t), np.asarray(ref.t),
                                rtol=1e-4, atol=1e-5)

@@ -315,3 +315,28 @@ def test_light_nee_mis_matches_bsdf_only():
     # MIS reduces variance but must not move the mean; 96 samples x 256
     # lanes puts the MC error of the means well under 6%
     np.testing.assert_allclose(m1, m0, rtol=0.06)
+
+
+def test_brdf_square_roots_have_finite_gradients_at_zero():
+    """A GGX sample whose cos_theta is 1 (u2 = 0), a Smith/Schlick/refract
+    argument at 0: the gradient w.r.t. roughness and ior must be finite
+    (sqrt(max(x, 0)) alone gives inf * 0 = NaN there)."""
+    import jax
+    from fspt_tpu.core import brdf
+    from fspt_tpu.core.vec import V3
+
+    n = V3(jnp.zeros(2), jnp.zeros(2), jnp.ones(2))
+    u = jnp.array([0.3, 0.7], jnp.float32)
+
+    def f(rough, ior):
+        m = brdf.sample_microfacet(n, rough, u, jnp.zeros(2))
+        inc = V3(jnp.zeros(2), jnp.ones(2), jnp.zeros(2))   # grazing
+        fr = brdf.schlick(inc, n, ior, jnp.ones(2))
+        r = brdf.refract(V3(jnp.ones(2), jnp.zeros(2), jnp.zeros(2)), n,
+                         ior)
+        g = brdf.smith_g(jnp.zeros(2), rough * 0.0)
+        return jnp.sum(m.x + m.y + m.z + fr + r.x + r.y + r.z + g)
+
+    gr, gi = jax.grad(f, argnums=(0, 1))(jnp.full(2, 0.3), jnp.full(2, 1.5))
+    assert np.isfinite(np.asarray(gr)).all()
+    assert np.isfinite(np.asarray(gi)).all()

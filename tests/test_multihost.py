@@ -132,7 +132,7 @@ def _run_two_procs(worker, timeout):
 
 
 def test_two_process_cpu_smoke(tmp_path):
-    if os.environ.get("FSPT_TEST_TPU"):
+    if os.environ.get("FSPT_TEST_ON_DEVICE"):
         pytest.skip("multi-process smoke is a CPU-backend test")
     procs, outs = _run_two_procs(_WORKER, 300)
     for pid, (p, out) in enumerate(zip(procs, outs)):
@@ -148,7 +148,7 @@ def test_two_process_render_per_pixel_exact(tmp_path):
     deferred deposits) and the allgathered image must equal the
     single-device renderer bit-for-bit — the same lane-id-keyed-RNG
     argument as tests/test_parallel.py, now across process boundaries."""
-    if os.environ.get("FSPT_TEST_TPU"):
+    if os.environ.get("FSPT_TEST_ON_DEVICE"):
         pytest.skip("multi-process exactness is a CPU-backend test")
     procs, outs = _run_two_procs(_RENDER_WORKER, 600)
     for pid, (p, out) in enumerate(zip(procs, outs)):

@@ -42,11 +42,9 @@ def test_heatmap_mode(small_scene):
     assert hdr.max() > 0  # some rays visited nodes
     # grayscale
     np.testing.assert_array_equal(hdr[..., 0], hdr[..., 1])
-    # per-PIXEL granularity (round-4 VERDICT missing #3): lane-count mode
-    # reports each ray's own wanted-node tally, so counts must vary
-    # WITHIN a 128-lane walk (walk s covers flat-order lanes
-    # [s*128, (s+1)*128) of the tile-ordered framebuffer), not be
-    # block-constant like the walk's shared fetch count
+    # per-PIXEL granularity: each ray reports its own node fetches, so
+    # counts must vary within every run of 128 neighbouring lanes of the
+    # tile-ordered framebuffer, not be block-constant
     from fspt_tpu.runtime.layout import tile_order
     flat = hdr[..., 0].reshape(-1)
     order = np.asarray(tile_order(r.cfg.width, r.cfg.height))
@@ -74,9 +72,9 @@ def test_checkpoint_resume(small_scene, tmp_path):
 
 
 def test_brute_vs_packet_integrator_agree(small_scene):
-    """Same RNG + same estimator, different intersector: images identical up
-    to float tolerance."""
-    cfg_pkt = _small_cfg(seed=3, intersector="packet")
+    """Same RNG + same estimator, different intersector ("bvh": the plain
+    walk on the CPU): images identical up to float tolerance."""
+    cfg_pkt = _small_cfg(seed=3, intersector="bvh")
     cfg_brt = _small_cfg(seed=3, intersector="brute")
     a = Renderer(small_scene, cfg_pkt).step().hdr_image()
     b = Renderer(small_scene, cfg_brt).step().hdr_image()

@@ -144,10 +144,10 @@ def test_render_animation_resumable(tmp_path):
 
 def test_cli_production_config(tmp_path):
     """The CLI render path must build the production estimator config
-    (split multi-pop kernel + nearest-env fusion + compaction + state
-    sort), and --no-compact must fall back to the exact-parity debug
-    config — a regression tripwire so the shipped CLI never silently
-    loses the perf levers."""
+    (BVH traversal + nearest-env fusion + compaction + state sort), and
+    --no-compact must fall back to the exact-parity debug config — a
+    regression tripwire so the shipped CLI never silently loses the perf
+    levers."""
     from argparse import Namespace
     from fspt_tpu.testing import icosphere_obj
     scene_path = tmp_path / "s.json"
@@ -161,12 +161,12 @@ def test_cli_production_config(tmp_path):
                      batch_spp=1, mode="render", seed=0, denoise=False,
                      exposure=None, no_compact=False)
     _, r = _build(args)
-    assert r.cfg.intersector == "split"
+    assert r.cfg.intersector == "bvh"
     assert r.cfg.compact and r.cfg.sort_state
     assert r.cfg.nee_env_nearest and r.cfg.escape_env_nearest
     args.no_compact = True
     _, r = _build(args)
-    assert r.cfg.intersector == "walk"
+    assert r.cfg.intersector == "bvh"
     assert not (r.cfg.compact or r.cfg.sort_state
                 or r.cfg.nee_env_nearest or r.cfg.escape_env_nearest)
 
